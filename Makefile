@@ -4,7 +4,7 @@
 
 PYTHON ?= python
 
-.PHONY: lint test bench native all
+.PHONY: lint test bench smoke all
 
 all: lint test
 
@@ -17,5 +17,5 @@ test:
 bench:
 	$(PYTHON) bench.py
 
-native:
-	$(MAKE) -C csrc
+smoke:
+	$(PYTHON) chip_smoke.py

@@ -26,7 +26,8 @@ iteration), simplex projections/sorts, and vector bookkeeping.  The
 reported GFLOP/s is therefore a *lower bound* on achieved throughput.
 """
 
-__all__ = ["aa_outer_iteration_flops", "gram_flops", "peak_flops_bf16"]
+__all__ = ["aa_outer_iteration_flops", "gram_flops", "peak_flops",
+           "PEAKS"]
 
 
 def aa_outer_iteration_flops(n, d, k, dict_iters=1):
@@ -45,24 +46,26 @@ def gram_flops(n, d):
     return 2 * n * n * d
 
 
-# Peak dense-matmul throughput per chip, bf16 (public spec sheets).
-_PEAKS = (
-    ("v6 lite", 918e12),   # Trillium
-    ("v6e", 918e12),
-    ("v5 lite", 197e12),   # v5e
-    ("v5e", 197e12),
-    ("v5p", 459e12),
-    ("v5", 459e12),
-    ("v4", 275e12),
-)
+#: Published dense peaks (FLOP/s) per matmul precision policy
+#: (utils/precision.py), keyed by ``jax.Device.device_kind``.  Source:
+#: NVIDIA H100 SXM data sheet, dense rates without sparsity, at the full
+#: 700 W power limit; 'float32' runs outside the tensor cores.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {
+        "bfloat16": 989e12,
+        "tensorfloat32": 495e12,
+        "float32": 67e12,
+    },
+}
 
 
-def peak_flops_bf16(device_str):
-    """Best-effort peak bf16 FLOP/s for a jax device string (e.g.
-    'TPU v5 lite0'); None when unknown.  float32 matmuls run below
-    this peak, so MFU reported against it is conservative."""
-    s = str(device_str).lower()
-    for key, peak in _PEAKS:
-        if key in s:
-            return peak
-    return None
+def peak_flops(device_kind, precision):
+    """Published peak FLOP/s of ``device_kind`` at a matmul precision
+    policy.  An unknown device or precision is an error, not a
+    default."""
+    try:
+        return PEAKS[device_kind][precision]
+    except KeyError:
+        raise ValueError(
+            "no published peak for %r at precision %r; known devices: %s"
+            % (device_kind, precision, sorted(PEAKS))) from None

@@ -2,7 +2,7 @@
 """Measure the flagship config-3 NumPy baseline END-TO-END.
 
 Round-4 verdict item 1: the headline denominator was *reconstructed*
-(capped 13-iteration runs -> trimmed per-iteration tail x mean TPU
+(capped 13-iteration runs -> trimmed per-iteration tail x mean device
 iteration count), with a [q10, q90] spread spanning 2.8x.  This script
 retires that asterisk by running the actual protocol to tolerance:
 best-of-``N_INIT_MEASURED`` restarts per seed, ``SEEDS`` independent

@@ -1,14 +1,14 @@
 #!/usr/bin/env python
 """Full benchmark suite: the five BASELINE.md configs.
 
-Writes one JSON object per config to stdout (and benchmarks/results.json)
-with wall-clock timings on the attached device.  ``bench.py`` at the
-repo root remains the driver's single-line headline benchmark (config 3);
-this suite covers the rest:
+Writes one JSON object per config to stdout (and benchmarks/results.json,
+which git ignores) with wall-clock timings on the attached GPU, in one
+process.  ``bench.py`` at the repo root holds the headline benchmark
+(config 3), which this suite runs in the same process:
 
 1. synthetic k=3 AA on ~200x50 Gaussian data (reference test workload)
 2. HadISST-scale k-means + gap statistic
-3. HadISST-scale AA best-of-16 (delegates to bench.py's workload)
+3. HadISST-scale AA best-of-100 (bench.py's headline)
 4. JRA-55-scale PCA -> GPNH convex coding
 5. (stretch) multi-restart AA sweep k=2..20 x 50 restarts
 """
@@ -78,10 +78,10 @@ def config2_kmeans():
     (model, gap, sk), seconds = timed(run)
 
     # Reference frozen experiment scale: gap N_TRIALS=100
-    # (reference bin/run_hadisst_kmeans_wrapper.sh:40-44).  Run
-    # unconditionally on the TPU side; the NumPy denominator is
-    # measured as a trial subset scaled over the independent trial
-    # axis (benchmarks/measure_baselines.py config2_ref).
+    # (reference bin/run_hadisst_kmeans_wrapper.sh:40-44).  The NumPy
+    # denominator is measured as a trial subset scaled over the
+    # independent trial axis (benchmarks/measure_baselines.py
+    # config2_ref).
     def run_ref():
         model = KMeans(n_clusters=4, n_init=10, random_state=0).fit(X)
         gap, sk = gap_statistic(X, model.inertia_, 4, n_trials=100,
@@ -98,13 +98,8 @@ def config2_kmeans():
 
 
 def config3_headline():
-    import subprocess
-    out = subprocess.run([sys.executable,
-                          os.path.join(os.path.dirname(
-                              os.path.dirname(os.path.abspath(__file__))),
-                              "bench.py")],
-                         capture_output=True, text=True, check=True)
-    return json.loads(out.stdout.strip().splitlines()[-1])
+    import bench
+    return bench.headline()
 
 
 def config4_pca_gpnh():
@@ -175,9 +170,10 @@ def _attach_measured_baselines(report):
         for key in ("cost", "inertia"):
             if key in base:
                 entry["baseline_" + key] = base[key]
-        # Reference frozen-scale comparison (TPU measured at full
-        # n_trials=100 / n_init=100; NumPy side a labeled scaled
-        # subset — see measure_baselines.config{2,4}_ref).
+        # Reference frozen-scale comparison (the GPU measured at full
+        # n_trials=100 / n_init=100; the NumPy side a labeled scaled
+        # subset taken on the previous 1-core host — see
+        # measure_baselines.config{2,4}_ref).
         ref_base = baselines.get(name + "_ref")
         ref_entry = entry.get("ref_scale")
         if ref_base and isinstance(ref_entry, dict) \
@@ -203,16 +199,21 @@ def main():
         configs = [(n, f) for n, f in configs if n in selected]
 
     # Merge into the existing report: re-running a subset must not drop
-    # the other configs, and re-running a config must preserve any
-    # attached A/B sub-results (e.g. config5's screened_ab) that other
-    # benchmark scripts recorded under the same key.
+    # the other configs.
     out_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "results.json")
     report = {}
     if os.path.exists(out_path):
         with open(out_path) as f:
             report = json.load(f)
-    report["device"] = str(jax.devices()[0])
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        raise SystemExit("run_all.py needs a GPU; JAX reports platform %r"
+                         % dev.platform)
+    import bench
+    report["device"] = {"platform": dev.platform, "kind": dev.device_kind,
+                        "count": len(jax.devices()),
+                        "card": bench.card_line()}
 
     import subprocess
     try:
@@ -227,28 +228,12 @@ def main():
             fresh = fn()
         except Exception as exc:  # keep the suite running
             fresh = {"error": repr(exc)}
-        prev = report.get(name)
-        if isinstance(prev, dict) and isinstance(fresh, dict):
-            if "error" in fresh:
-                # A failed re-run must not destroy the previous good
-                # result (and must not inherit its A/B attachments,
-                # which would pin stale evidence onto an error entry).
-                fresh = {"error": fresh["error"],
-                         "previous_good": {k: v for k, v in prev.items()
-                                           if k != "previous_good"}}
-            else:
-                # Only A/B attachments survive a re-run; anything else
-                # from the previous run would be stale alongside fresh
-                # timings.
-                for key in ("screened_ab", "pallas_backend_ab"):
-                    if key in prev and key not in fresh:
-                        fresh[key] = prev[key]
         if isinstance(fresh, dict) and "error" not in fresh:
             # Per-config provenance: configs measured at different
             # code states/devices are distinguishable in the merged
             # report ("device" at top level only reflects the last run).
             fresh["measured_at"] = {"git_rev": rev or "unknown",
-                                    "device": str(jax.devices()[0])}
+                                    "device": report["device"]}
         report[name] = fresh
         print(json.dumps({name: report[name]}), flush=True)
     _attach_measured_baselines(report)

@@ -1,13 +1,13 @@
-"""convex_dim_red_tpu: TPU-native convex matrix factorization.
+"""convex_dim_red_tpu: convex matrix factorization on JAX.
 
 A ground-up JAX/XLA re-design of the capabilities of the reference
 ``convex_dim_red`` package (archetypal analysis, GPNH convex coding,
 k-means helpers, SPG solvers, simplex projections, FurthestSum
-initialization) plus TPU-first batching/sharding for multi-restart fits.
+initialization) plus batching/sharding for multi-restart fits.
 
 Public surface mirrors the reference package
 (reference src/convex_dim_red/__init__.py:5-11) and adds the
-TPU-specific parallel APIs.
+parallel APIs.
 """
 
 from .models.archetypal_analysis import ArchetypalAnalysis, KernelAA

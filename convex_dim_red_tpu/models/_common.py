@@ -22,11 +22,12 @@ __all__ = [
 class QPSolverConfig:
     """Parameters of the simplex-QP SPG solver (reference spg.py:286-291).
 
-    ``backend``: 'pallas' routes batched solves to the fused TPU kernel
+    ``backend``: 'pallas' routes batched solves to the fused GPU kernel
     (ops/pallas_qp.py), 'xla' to the portable vmapped solver, and the
     default 'auto' picks per call regime from measurement — 'pallas'
-    for cold one-shot batches (transforms) on TPU, 'xla' for the
-    warm-started QPs inside fit loops and on every other platform
+    on the GPU for cold one-shot batches (transforms) and the
+    restart-batched fits, 'xla' for the warm-started QPs inside
+    single-restart fit loops and on every other platform
     (solvers/spg.py:resolve_qp_backend has the measured numbers).
     """
     backend: str = 'auto'

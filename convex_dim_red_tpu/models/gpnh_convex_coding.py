@@ -1,4 +1,4 @@
-"""GPNH-regularized convex coding, TPU-native.
+"""GPNH-regularized convex coding on the JAX core.
 
 Re-implements the reference's GPNH convex coding
 (reference: src/convex_dim_red/gpnh_convex_coding.py):
@@ -12,7 +12,8 @@ Alternating steps:
   ``np.linalg.lstsq``; we use the same least-squares solve via SVD so a
   rank-deficient ``Z'Z`` cannot increase the cost).
 - weights: per-row simplex QPs ``min 1/2 z'(W'W)z - (XW)[t]'z`` solved in
-  lockstep on the MXU (reference :229-279 via guvectorize threads).
+  lockstep as batched matmuls (reference :229-279 via guvectorize
+  threads).
 
 The whole fit is one jitted ``lax.while_loop`` (see
 ``archetypal_analysis`` module docstring for the shared design: on-device
@@ -239,10 +240,9 @@ def _gpnh_core(X, Z, W, lambda_W, tolerance, component_mask=None, *,
     inc_flags = jnp.zeros((2,), dtype=bool)
 
     # Watchdog threshold floored at the dtype's cost-evaluation
-    # resolution.  Same 64*eps multiplier as the AA core: on real TPU
-    # under reduced matmul precision, f32 fits at the resolution floor
-    # oscillate with per-stage increases up to ~26*eps*trace (see the
-    # calibration note in archetypal_analysis._kernel_aa_core).
+    # resolution.  Same 64*eps multiplier as the AA core (see the note
+    # in archetypal_analysis._kernel_aa_core; not yet measured on the
+    # H100).
     watchdog_floor = 64.0 * float(jnp.finfo(X.dtype).eps) * trace_XtX
     watchdog_thresh = jnp.maximum(tolerance, watchdog_floor)
 
@@ -483,7 +483,7 @@ class GPNHConvexCoding:
     attributes ``weights``, ``dictionary``, ``cost``, ``n_iter``,
     ``avg_time_per_iter``, ``cost_deltas``.
 
-    TPU extension: ``mesh=`` runs the fit as an explicit SPMD program
+    Extension: ``mesh=`` runs the fit as an explicit SPMD program
     over the mesh's ``samples`` axis
     (``parallel.sharded_aa.sharded_gpnh_fit``): data rows and per-row
     weight QPs stay device-local, the k-sized lstsq dictionary solve

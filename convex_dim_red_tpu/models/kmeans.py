@@ -1,10 +1,10 @@
-"""K-means clustering and gap-statistic model selection, TPU-native.
+"""K-means clustering and gap-statistic model selection on the JAX core.
 
 The reference delegates clustering to sklearn ``KMeans`` and
 parallelizes gap-statistic reference draws with joblib process forks
 (reference: src/convex_dim_red/kmeans.py).  Here Lloyd iterations are a
 jitted ``lax.while_loop`` whose distance computation is one
-``X @ C'`` matmul on the MXU and whose centroid update is a one-hot
+``X @ C'`` matmul and whose centroid update is a one-hot
 matmul (segment sum); k-means++ seeding is a ``fori_loop`` of
 categorical draws; the ``n_init`` restarts are a ``vmap`` batch; and the
 gap statistic's reference draws run as a ``lax.map`` over per-trial PRNG
@@ -27,7 +27,7 @@ __all__ = ["KMeans", "kmeans_fit", "kmeans_plusplus", "random_init",
 
 @apply_matmul_precision
 def _sq_dists(X, centroids):
-    """Squared Euclidean distances (n, k) via one MXU matmul."""
+    """Squared Euclidean distances (n, k) via one matmul."""
     x2 = jnp.sum(X * X, axis=1, keepdims=True)
     c2 = jnp.sum(centroids * centroids, axis=1)
     cross = X @ centroids.T
@@ -146,7 +146,7 @@ class KMeans:
     ``fit_predict`` / ``predict`` and fitted attributes
     ``cluster_centers_``, ``labels_``, ``inertia_``, ``n_iter_``.
 
-    TPU extension: ``mesh=`` runs the fit as an explicit SPMD program
+    Extension: ``mesh=`` runs the fit as an explicit SPMD program
     (``parallel.sharded_models.sharded_kmeans_fit``) with sample rows
     sharded over the mesh's ``samples`` axis and the ``n_init``
     restarts sharded over its ``restarts`` axis (padded up to the axis

@@ -1,4 +1,4 @@
-"""PCA / EOF analysis, TPU-native.
+"""PCA / EOF analysis on the JAX core.
 
 The reference performs PCA with sklearn inside the analysis notebooks
 (``run_pca`` in notebooks/hadisst_pca.ipynb: fit PCA on latitude-weighted
@@ -28,7 +28,7 @@ def pca_fit(X, *, n_components, center=True, use_gram=False):
 
     ``use_gram=True`` computes the eigendecomposition of the n x n Gram
     matrix instead of the SVD of the n x d data — cheaper when
-    ``n_features >> n_samples`` and maps to a single MXU matmul plus a
+    ``n_features >> n_samples`` and maps to a single matmul plus a
     small eigh.
     """
     X = jnp.asarray(X)
@@ -62,7 +62,7 @@ class PCA:
     ``fit_transform`` / ``inverse_transform``, ``components_``,
     ``explained_variance_``, ``explained_variance_ratio_``, ``mean_``.
 
-    TPU extension: ``mesh=`` runs the Gram-path fit as an explicit
+    Extension: ``mesh=`` runs the Gram-path fit as an explicit
     SPMD program (``parallel.sharded_models.sharded_pca``) with the
     FEATURE dimension sharded over the mesh's ``samples`` axis — the
     right split for the very-wide climate-grid matrices this class

@@ -1,25 +1,26 @@
-"""Pallas TPU kernel: fused batched simplex-QP solver.
+"""Pallas GPU kernel (Triton route): fused grouped simplex-QP solver.
 
-The weights update solves ``n`` independent simplex QPs
-``min 1/2 x'Ax + b'x`` sharing a tiny Hessian.  The XLA implementation
-(solvers/spg.py:quad_simplex_spg_batch) runs the SPG loop as a
-``lax.while_loop`` whose every iteration round-trips the (n, k) state
-through HBM across ~10 small fused kernels.  This kernel runs the whole
-solve inside one ``pallas_call``: the state lives in VMEM scratch
-buffers (the while loop carries only scalars — Mosaic cannot carry
-lane-replicated vectors through ``scf.yield``), each row block exits as
-soon as *its* rows converge (the XLA version runs lockstep until the
-globally slowest row finishes), and the per-iteration ``D @ A`` runs on
-the MXU from VMEM.
+The weights update solves, for every restart ``r``, ``n`` independent
+simplex QPs ``min 1/2 x'A_r x + b'x`` sharing a tiny ``k x k`` Hessian.
+The XLA implementation (solvers/spg.py:quad_simplex_spg_batch_grouped)
+runs the SPG loop as a data-dependent ``lax.while_loop`` whose every
+trip launches several small kernels over the whole ``(R, n, k)`` state
+and reads the loop predicate back before the next trip.  This kernel
+runs the whole solve in one launch: each program owns one block of
+``BLOCK_ROWS`` rows of one restart, keeps ``X``, ``A X``, the BB step,
+the active flags and the stall counters in registers as loop carries,
+and stops as soon as *its* rows have converged.
 
-The sort-based simplex projection is replaced inside the kernel by a
-fixed-trip bisection on the threshold ``tau`` (26/52 halvings of a
-width-1 bracket for float32/float64 — the threshold error is below the
-dtype's resolution, which in turn bounds the achievable KKT residual);
-lane-padding beyond the real ``k`` is masked out of every reduction.
+Per program: ``A_r`` is loaded once; the ``k x k`` matvec is a
+broadcast-multiply-reduce over a ``(BLOCK_ROWS, k_pad, k_pad)`` product
+in plain float32 FMAs (never TF32); the simplex projection is the exact
+Michelot active-set threshold with row reductions along the component
+axis.  ``k`` is padded to ``k_pad``, the next power of two (Triton
+tensors must have power-of-two sizes); padded lanes are masked out by
+the runtime component mask, so padded-``k`` buckets share one program.
 
 Not differentiated through (the solver is used inside fixed-point
-iterations); interpret mode works on CPU for tests.
+iterations).  ``interpret=True`` runs it on the CPU for tests.
 """
 
 import functools
@@ -27,723 +28,195 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ..utils.vma import vma_of
 
-__all__ = ["quad_simplex_qp_pallas", "quad_simplex_qp_pallas_grouped",
-           "quad_simplex_qp_pallas_packed",
-           "quad_simplex_qp_pallas_packed_grouped"]
+__all__ = ["quad_simplex_qp_pallas", "MAX_K", "launch_config"]
 
-LANES = 128
+#: Widest problem the kernel takes (after padding to a power of two).
+#: The register-resident ``(BLOCK_ROWS, k_pad, k_pad)`` matvec product
+#: bounds it; wider QPs use the XLA solver.
+MAX_K = 64
 
-#: Default per-segment simplex projection of the lane-packed kernels:
-#: 'michelot' (exact threshold by active-set iteration, ~2x fewer MXU
-#: matmuls per SPG iteration) or 'bisect' (legacy fixed-trip threshold
-#: bisection, kept as the A/B reference —
-#: benchmarks/qp_projection_ab.py).  Callers override per call with
-#: ``projection=``; benchmarks flip this module knob to A/B whole fits.
-PACKED_PROJECTION = 'michelot'
+#: ``k_pad -> (BLOCK_ROWS, num_warps)``, tuned on an H100 (PERF.md).
+#: Small blocks win: more programs in flight, and a block exits as soon
+#: as its own few rows have converged.
+_LAUNCH = {8: (32, 1), 16: (16, 1), 32: (4, 1), 64: (2, 2)}
 
 
-def _bisect_steps(dtype):
-    # Halvings of the width-1 threshold bracket until it is below the
-    # dtype's resolution (the achievable KKT residual tracks the
-    # projection's threshold error).
-    return 26 if dtype == jnp.float32 else 52
+def _k_pad(k):
+    k_pad = 8
+    while k_pad < k:
+        k_pad *= 2
+    return k_pad
 
 
-def _masked_project(x, mask, dtype):
-    """Project rows of ``x`` onto the simplex over lanes where ``mask``;
-    masked lanes are forced to 0.  Bisection on the threshold."""
-    shape = x.shape
-    neg = jnp.asarray(-1e30, dtype)
-    xm = jnp.where(mask, x, neg)
-    hi = jnp.broadcast_to(jnp.max(xm, axis=1, keepdims=True), shape)
-    lo = hi - 1.0
-
-    def body(_, carry):
-        lo, hi = carry
-        mid = 0.5 * (lo + hi)
-        s = jnp.broadcast_to(
-            jnp.sum(jnp.where(mask, jnp.maximum(x - mid, 0.0), 0.0),
-                    axis=1, keepdims=True), shape)
-        too_big = s > 1.0
-        lo = jnp.where(too_big, mid, lo)
-        hi = jnp.where(too_big, hi, mid)
-        return lo, hi
-
-    lo, hi = jax.lax.fori_loop(0, _bisect_steps(dtype), body, (lo, hi))
-    tau = 0.5 * (lo + hi)
-    return jnp.where(mask, jnp.maximum(x - tau, 0.0), 0.0)
+def launch_config(k):
+    """``(k_pad, BLOCK_ROWS, num_warps)`` for a ``k``-component QP."""
+    k_pad = _k_pad(k)
+    if k_pad > MAX_K:
+        raise ValueError(
+            f"pallas QP kernel supports k <= {MAX_K}, got {k}; use "
+            "backend='xla'")
+    return (k_pad, *_LAUNCH[k_pad])
 
 
-def _qp_solve_vmem(A, B, X0, mask, write_out,
-                   X_ref, AX_ref, alpha_ref, active_ref, stall_ref, *,
-                   max_iterations, alpha0, alpha_min, alpha_max,
-                   epsilon_one, epsilon_two):
-    """Shared VMEM-resident SPG solve: operands already loaded as
-    (block, LANES) arrays; the result goes out through ``write_out``
-    (the plain and grouped kernels differ only in ref ranks)."""
-    dtype = X0.dtype
-    block = X0.shape[0]
+def _qp_kernel(A_ref, B_ref, X0_ref, M_ref, out_ref, *, n_proj,
+               max_iterations, alpha0, alpha_min, alpha_max, epsilon_one,
+               epsilon_two):
+    A = A_ref[...]            # (k_pad, k_pad)
+    B = B_ref[...]            # (BLOCK_ROWS, k_pad) linear term
+    mask = M_ref[...] > 0.5   # (1, k_pad) runtime component mask
+    dtype = B.dtype
+    rows = B.shape[0]
+    mask_f = jnp.where(mask, 1.0, 0.0).astype(dtype)
+
+    def matvec(V):
+        # Row-wise V @ A as a broadcast-multiply-reduce: full-precision
+        # FMAs, no tensor-core (TF32) path.
+        return jnp.sum(V[:, :, None] * A[None, :, :], axis=1)
 
     def rowsum(v):
-        return jnp.broadcast_to(jnp.sum(v, axis=1, keepdims=True),
-                                (block, LANES))
+        return jnp.sum(v, axis=1, keepdims=True)
 
-    def rowmax(v):
-        return jnp.broadcast_to(jnp.max(v, axis=1, keepdims=True),
-                                (block, LANES))
+    def project(x):
+        # Michelot: tau = (sum_active x - 1) / |active|, drop x <= tau;
+        # the active set only shrinks, so n_proj = k trips reach the
+        # exact threshold.  The row maximum never drops out, so the
+        # count guard only protects an all-masked row.
+        def tau_of(act):
+            return (rowsum(x * act) - 1.0) / jnp.maximum(rowsum(act), 1.0)
 
-    X = _masked_project(X0, mask, dtype)
-    AX = jnp.dot(X, A, preferred_element_type=dtype,
-                 precision=jax.lax.Precision.HIGHEST)
+        def body(_, act):
+            return jnp.where(x > tau_of(act), act, 0.0)
 
+        act = jax.lax.fori_loop(0, n_proj, body,
+                                jnp.broadcast_to(mask_f, x.shape))
+        return jnp.where(mask, jnp.maximum(x - tau_of(act), 0.0), 0.0)
+
+    X = project(X0_ref[...])
+    AX = matvec(X)
     if alpha_min <= alpha0 <= alpha_max:
-        alpha = jnp.full((block, LANES), alpha0, dtype)
+        alpha = jnp.full((rows, 1), alpha0, dtype)
     else:
-        d0 = _masked_project(X - (AX + B), mask, dtype) - X
-        ainv = rowmax(jnp.abs(d0))
+        d0 = project(X - (AX + B)) - X
+        ainv = jnp.max(jnp.abs(d0), axis=1, keepdims=True)
         ainv = jnp.where(jnp.abs(ainv) < 1e-12, 1.0, ainv)
         alpha = jnp.clip(1.0 / ainv, alpha_min, alpha_max)
 
-    X_ref[:] = X
-    AX_ref[:] = AX
-    alpha_ref[:] = alpha
-    active_ref[:] = jnp.ones((block, LANES), dtype)   # 1.0 = active row
-    stall_ref[:] = jnp.zeros((block, LANES), dtype)
-
     progress_eps = 32.0 * float(jnp.finfo(dtype).eps)
+    tiny = float(jnp.finfo(dtype).tiny)
 
     def cond(carry):
-        it, any_active = carry
-        return jnp.logical_and(it < max_iterations, any_active)
+        it, any_active = carry[0], carry[-1]
+        return (it < max_iterations) & (any_active > 0)
 
     def body(carry):
-        it, _ = carry
-
-        X = X_ref[:]
-        AX = AX_ref[:]
-        alpha = alpha_ref[:]
-        active = active_ref[:] > 0.5
-        stall = stall_ref[:]
-
+        # One iteration of solvers/spg.py:quad_spg, row by row, with
+        # its stopping rule; rows that have stopped stay frozen.
+        it, X, AX, alpha, active, stall, _ = carry
+        live = active > 0
         G = AX + B
-        alpha_used = alpha
-        D = _masked_project(X - alpha * G, mask, dtype) - X
-        AD = jnp.dot(D, A, preferred_element_type=dtype,
-                     precision=jax.lax.Precision.HIGHEST)
+        D = project(X - alpha * G) - X
+        AD = matvec(D)
 
         delta = rowsum(D * G)
         q = rowsum(D * AD)
         safe_q = jnp.where(q > 0, q, 1.0)
         lam = jnp.where(q > 0, jnp.clip(-delta / safe_q, 0.0, 1.0), 1.0)
-        lam = jnp.where(active, lam, 0.0)
+        lam = jnp.where(live, lam, 0.0)
 
         X = X + lam * D
         AX = AX + lam * AD
+        alpha = jnp.where(
+            live,
+            jnp.where(q > 0, jnp.clip(rowsum(D * D) / safe_q, alpha_min,
+                                      alpha_max), alpha_max),
+            alpha)
 
-        sksk = rowsum(D * D)
-        alpha_new = jnp.where(q > 0,
-                              jnp.clip(sksk / safe_q, alpha_min, alpha_max),
-                              jnp.full_like(q, alpha_max))
-        alpha = jnp.where(active, alpha_new, alpha)
-
+        res = project(X - (AX + B)) - X
         decrease = -(lam * delta + 0.5 * lam * lam * q)
-        fval = jnp.abs(0.5 * rowsum(X * AX) + rowsum(X * B))
-        no_progress = decrease <= progress_eps * (
-            fval + jnp.finfo(dtype).tiny)
-        stall = jnp.where(no_progress, stall + 1.0, 0.0)
+        fval = jnp.abs(0.5 * rowsum(X * AX) + rowsum(X * B)) + tiny
+        stall = jnp.where(decrease <= progress_eps * fval, stall + 1, 0)
+        converged = ((rowsum(res * res) < epsilon_two * epsilon_two)
+                     | (jnp.max(jnp.abs(res), axis=1, keepdims=True)
+                        < epsilon_one)
+                     | (stall >= 3))
+        active = jnp.where(converged, 0, active)
+        return (it + 1, X, AX, alpha, active, stall, jnp.max(active))
 
-        # Convergence from the (free) step direction: D is the
-        # projected-gradient residual at step alpha, and the projection
-        # arc satisfies ||P(x - g) - x|| <= ||D|| / min(alpha, 1), so
-        # ||D|| < eps * min(alpha, 1) soundly implies the reference's
-        # alpha = 1 residual criteria — no second projection needed.
-        scale = jnp.minimum(alpha_used, 1.0)
-        d2 = rowsum(D * D)
-        dinf = rowmax(jnp.abs(D))
-        converged = ((d2 < (epsilon_two * scale) * (epsilon_two * scale))
-                     | (dinf < epsilon_one * scale) | (stall >= 3.0))
-        active = active & ~converged
-
-        X_ref[:] = X
-        AX_ref[:] = AX
-        alpha_ref[:] = alpha
-        active_ref[:] = jnp.where(active, 1.0, 0.0).astype(dtype)
-        stall_ref[:] = stall
-
-        any_active = jnp.max(active_ref[:]) > 0.5
-        return it + 1, any_active
-
-    jax.lax.while_loop(cond, body,
-                       (jnp.asarray(0, jnp.int32), jnp.asarray(True)))
+    init = (jnp.int32(0), X, AX, alpha, jnp.ones((rows, 1), jnp.int32),
+            jnp.zeros((rows, 1), jnp.int32), jnp.int32(1))
+    X = jax.lax.while_loop(cond, body, init)[1]
     # Restore exact feasibility lost to incremental-update rounding.
-    write_out(_masked_project(X_ref[:], mask, dtype))
+    out_ref[...] = project(X)
 
 
-def _qp_kernel(A_ref, B_ref, X0_ref, M_ref, out_ref,
-               X_ref, AX_ref, alpha_ref, active_ref, stall_ref,
-               **statics):
-    block = X0_ref.shape[0]
-    # Active-lane mask is a RUNTIME input (1.0 active / 0.0 masked),
-    # not a static `lane < k` test: component-masked (bucketed) solves
-    # and plain solves of the same padded shape share one compiled
-    # program (parallel/restarts.py padded-k bucketing).  Masked lanes
-    # are pinned to zero by every projection, so arbitrary Hessian
-    # values in masked rows/cols never contribute.
-    mask = jnp.broadcast_to(M_ref[0:1, :], (block, LANES)) > 0.5
-
-    def write_out(v):
-        out_ref[:] = v
-
-    _qp_solve_vmem(A_ref[:], B_ref[:], X0_ref[:], mask, write_out,
-                   X_ref, AX_ref, alpha_ref, active_ref, stall_ref,
-                   **statics)
-
-
-def _grouped_qp_kernel(A_ref, B_ref, X0_ref, M_ref, out_ref,
-                       X_ref, AX_ref, alpha_ref, active_ref, stall_ref,
-                       **statics):
-    """Grouped variant: operand refs carry a leading group dim of 1
-    (one (k, k) Hessian per grid group — the per-restart Hessians of a
-    vmapped/sharded fit)."""
-    block = X0_ref.shape[1]
-    mask = jnp.broadcast_to(M_ref[0, 0:1, :], (block, LANES)) > 0.5
-
-    def write_out(v):
-        out_ref[0, :, :] = v
-
-    _qp_solve_vmem(A_ref[0], B_ref[0], X0_ref[0], mask, write_out,
-                   X_ref, AX_ref, alpha_ref, active_ref, stall_ref,
-                   **statics)
-
-
-def quad_simplex_qp_pallas(A, B, X0, max_iterations=1000, alpha0=-1.0,
-                           alpha_min=1e-5, alpha_max=1e3,
+def quad_simplex_qp_pallas(As, Bs, X0s, mask=None, max_iterations=1000,
+                           alpha0=-1.0, alpha_min=1e-5, alpha_max=1e3,
                            epsilon_one=1e-10, epsilon_two=1e-6,
-                           block_rows=512, interpret=False, mask=None):
-    """Solve ``n`` simplex QPs (shared Hessian) in one fused TPU kernel.
-
-    ``A``: (k, k); ``B``: (n, k); ``X0``: (n, k).  Returns (n, k).
-    Drop-in for :func:`solvers.spg.quad_simplex_spg_batch` when
-    ``k <= 128``.  ``mask`` (optional (k,) bool, runtime value, shared
-    across rows) restricts every QP to the masked sub-simplex with
-    masked coordinates pinned at exactly zero — the padded-``k``
-    bucketing primitive (masked and unmasked calls of the same shape
-    share one compiled program).
-    """
-    A = jnp.asarray(A)
-    B = jnp.asarray(B)
-    X0 = jnp.asarray(X0)
-    n, k = B.shape
-    if k > LANES:
-        raise ValueError(f"pallas QP kernel supports k <= {LANES}, got {k}")
-    dtype = X0.dtype
-
-    block_rows = min(block_rows, max(8, -(-n // 8) * 8))
-    n_pad = -(-n // block_rows) * block_rows
-
-    A_p = jnp.zeros((LANES, LANES), dtype).at[:k, :k].set(A)
-    B_p = jnp.zeros((n_pad, LANES), dtype).at[:n, :k].set(B)
-    X0_p = jnp.zeros((n_pad, LANES), dtype).at[:n, :k].set(X0)
-    active = (jnp.ones((k,), dtype) if mask is None
-              else jnp.asarray(mask).astype(dtype))
-    M_p = jnp.zeros((8, LANES), dtype).at[:, :k].set(active[None, :])
-
-    kernel = functools.partial(
-        _qp_kernel, max_iterations=int(max_iterations),
-        alpha0=float(alpha0), alpha_min=float(alpha_min),
-        alpha_max=float(alpha_max), epsilon_one=float(epsilon_one),
-        epsilon_two=float(epsilon_two))
-
-    out = pl.pallas_call(
-        kernel,
-        grid=(n_pad // block_rows,),
-        in_specs=[
-            pl.BlockSpec((LANES, LANES), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((block_rows, LANES), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((block_rows, LANES), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((8, LANES), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((block_rows, LANES), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct(
-            (n_pad, LANES), dtype,
-            # shard_map(check_vma=True) requires an explicit vma
-            # on pallas outputs; the solution varies exactly over
-            # the operands' manual axes (no collectives inside).
-            vma=frozenset(vma_of(A_p, B_p, X0_p, M_p))),
-        scratch_shapes=[
-            pltpu.VMEM((block_rows, LANES), dtype),  # X
-            pltpu.VMEM((block_rows, LANES), dtype),  # AX
-            pltpu.VMEM((block_rows, LANES), dtype),  # alpha
-            pltpu.VMEM((block_rows, LANES), dtype),  # active mask
-            pltpu.VMEM((block_rows, LANES), dtype),  # stall counter
-        ],
-        interpret=interpret,
-    )(A_p, B_p, X0_p, M_p)
-
-    return out[:n, :k]
-
-
-def quad_simplex_qp_pallas_grouped(As, Bs, X0s, max_iterations=1000,
-                                   alpha0=-1.0, alpha_min=1e-5,
-                                   alpha_max=1e3, epsilon_one=1e-10,
-                                   epsilon_two=1e-6, block_rows=512,
-                                   interpret=False, mask=None):
+                           interpret=False):
     """Solve ``R`` groups of simplex QPs, one Hessian per group, fused.
 
-    ``As``: (R, k, k); ``Bs``: (R, n, k); ``X0s``: (R, n, k).  Returns
-    (R, n, k).  The group axis becomes a grid dimension, so the
-    per-restart Hessians of a vmapped or shard_map'd multi-restart fit
-    run in ONE kernel instead of falling back to the XLA solver (the
-    single-Hessian kernel cannot nest under vmap).  ``mask`` is shared
-    across groups (the component mask of a padded-k bucket).
+    ``As``: (R, k, k); ``Bs``/``X0s``: (R, n, k) linear terms and
+    feasible starts of ``min 1/2 x'A_r x + b'x``.  Returns (R, n, k).
+    The grid is ``(R, cdiv(n, BLOCK_ROWS))``; a single-Hessian solve is
+    the case ``R = 1``.  ``mask`` (optional (k,) bool, a runtime value
+    shared across groups) restricts every QP to the masked sub-simplex
+    with masked coordinates pinned at exactly zero.
+
+    Compiles for the GPU only; ``interpret=True`` runs the kernel body
+    on any backend (tests).  Raises ``ValueError`` for ``k > MAX_K`` and
+    for a compiled call off the GPU.
     """
     As = jnp.asarray(As)
     Bs = jnp.asarray(Bs)
     X0s = jnp.asarray(X0s)
     R, n, k = Bs.shape
-    if k > LANES:
-        raise ValueError(f"pallas QP kernel supports k <= {LANES}, got {k}")
+    k_pad, block_rows, num_warps = launch_config(k)
+    if not interpret and jax.default_backend() != "gpu":
+        raise ValueError(
+            "the pallas QP kernel compiles only for the GPU (backend is "
+            f"{jax.default_backend()!r}); use backend='xla' or "
+            "interpret=True")
     dtype = X0s.dtype
+    n_pad = pl.cdiv(n, block_rows) * block_rows
 
-    block_rows = min(block_rows, max(8, -(-n // 8) * 8))
-    n_pad = -(-n // block_rows) * block_rows
-
-    A_p = jnp.zeros((R, LANES, LANES), dtype).at[:, :k, :k].set(As)
-    B_p = jnp.zeros((R, n_pad, LANES), dtype).at[:, :n, :k].set(Bs)
-    X0_p = jnp.zeros((R, n_pad, LANES), dtype).at[:, :n, :k].set(X0s)
+    A_p = jnp.zeros((R, k_pad, k_pad), dtype).at[:, :k, :k].set(As)
+    B_p = jnp.zeros((R, n_pad, k_pad), dtype).at[:, :n, :k].set(Bs)
+    X0_p = jnp.zeros((R, n_pad, k_pad), dtype).at[:, :n, :k].set(X0s)
     active = (jnp.ones((k,), dtype) if mask is None
               else jnp.asarray(mask).astype(dtype))
-    M_p = jnp.zeros((1, 8, LANES), dtype).at[:, :, :k].set(
-        active[None, None, :])
+    M_p = jnp.zeros((1, k_pad), dtype).at[0, :k].set(active)
 
     kernel = functools.partial(
-        _grouped_qp_kernel, max_iterations=int(max_iterations),
+        _qp_kernel, n_proj=int(k), max_iterations=int(max_iterations),
         alpha0=float(alpha0), alpha_min=float(alpha_min),
         alpha_max=float(alpha_max), epsilon_one=float(epsilon_one),
         epsilon_two=float(epsilon_two))
-
+    rows_spec = pl.BlockSpec((None, block_rows, k_pad),
+                             lambda r, i: (r, i, 0))
     out = pl.pallas_call(
         kernel,
         grid=(R, n_pad // block_rows),
         in_specs=[
-            pl.BlockSpec((1, LANES, LANES), lambda r, i: (r, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, block_rows, LANES), lambda r, i: (r, i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, block_rows, LANES), lambda r, i: (r, i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 8, LANES), lambda r, i: (0, 0, 0),
-                         memory_space=pltpu.VMEM),
+            pl.BlockSpec((None, k_pad, k_pad), lambda r, i: (r, 0, 0)),
+            rows_spec,
+            rows_spec,
+            pl.BlockSpec((1, k_pad), lambda r, i: (0, 0)),
         ],
-        out_specs=pl.BlockSpec((1, block_rows, LANES),
-                               lambda r, i: (r, i, 0),
-                               memory_space=pltpu.VMEM),
+        out_specs=rows_spec,
         out_shape=jax.ShapeDtypeStruct(
-            (R, n_pad, LANES), dtype,
+            (R, n_pad, k_pad), dtype,
+            # shard_map(check_vma=True) requires an explicit vma on
+            # pallas outputs; the solution varies exactly over the
+            # operands' manual axes (no collectives inside).
             vma=frozenset(vma_of(A_p, B_p, X0_p, M_p))),
-        scratch_shapes=[
-            pltpu.VMEM((block_rows, LANES), dtype),  # X
-            pltpu.VMEM((block_rows, LANES), dtype),  # AX
-            pltpu.VMEM((block_rows, LANES), dtype),  # alpha
-            pltpu.VMEM((block_rows, LANES), dtype),  # active mask
-            pltpu.VMEM((block_rows, LANES), dtype),  # stall counter
-        ],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+                                             num_stages=1),
         interpret=interpret,
+        name="simplex_qp_spg",
     )(A_p, B_p, X0_p, M_p)
-
     return out[:, :n, :k]
-
-
-# ---------------------------------------------------------------------------
-# Lane-packed variant: multiple problems per 128-lane row
-# ---------------------------------------------------------------------------
-
-
-def _packed_solve_vmem(A, B, X0, S, mask, write_out,
-                       X_ref, AX_ref, alpha_ref, active_ref, stall_ref, *,
-                       k_pad, max_iterations, alpha0, alpha_min,
-                       alpha_max, epsilon_one, epsilon_two, bisect_steps,
-                       projection='michelot', proj_steps=None):
-    """QP solve with P = LANES // k_pad problems packed per lane row.
-
-    ``A`` holds the block-diagonal (LANES, LANES) Hessian (P copies
-    of the padded k x k block), so one MXU matmul performs P matvecs;
-    ``S`` is the 0/1 segment mask whose matmul computes
-    sum-and-broadcast over each k_pad-lane segment.  ``mask`` is the
-    runtime active-lane mask (the per-problem component mask tiled into
-    every segment — see :func:`_qp_kernel` on why it is runtime).
-    Segment max uses a masked roll butterfly.  Per-problem scalars live
-    broadcast across their segment's lanes.
-
-    ``projection``: the per-segment simplex projection.  'michelot'
-    (default) computes the EXACT threshold by active-set iteration
-    (Michelot 1986: ``tau = (sum_active x - 1)/|active|``, deactivate
-    ``x <= tau``; the active set only shrinks, so ``proj_steps`` =
-    number of real components bounds the fixed-trip count) — 2 segment
-    matmuls per step, ~2x fewer MXU matmuls per SPG iteration than the
-    legacy 'bisect' (26 halvings of a width-1 bracket), which remains
-    as the A/B reference (benchmarks/qp_projection_ab.py).
-    """
-    dtype = X0.dtype
-    block = X0.shape[0]
-
-    lane = jax.lax.broadcasted_iota(jnp.int32, (block, LANES), 1)
-    pos = lane % k_pad
-    neg = jnp.asarray(-1e30, dtype)
-
-    def segsum(v):
-        # HIGHEST precision: the default TPU f32 matmul truncates inputs
-        # to bfloat16, which is catastrophic for the segment sums.
-        return jnp.dot(v, S, preferred_element_type=dtype,
-                       precision=jax.lax.Precision.HIGHEST)
-
-    def segmax(v):
-        v = jnp.where(mask, v, neg)
-        s = 1
-        while s < k_pad:
-            # pltpu.roll requires non-negative shifts; LANES - s rolls
-            # backwards.
-            fwd = jnp.where(pos >= s, pltpu.roll(v, s, 1), neg)
-            bwd = jnp.where(pos < k_pad - s, pltpu.roll(v, LANES - s, 1),
-                            neg)
-            v = jnp.maximum(v, jnp.maximum(fwd, bwd))
-            s *= 2
-        return v
-
-    def _seg_tau(x, act_f):
-        s = segsum(x * act_f)
-        c = jnp.maximum(segsum(act_f), 1.0)
-        return (s - 1.0) / c
-
-    def project_michelot(x):
-        # Exact per-segment threshold by active-set iteration.  The
-        # maximum lane of a segment can never drop out (its threshold
-        # satisfies tau < max(x)), so the c >= 1 guard only protects
-        # fully-masked segments.  The active set is carried as a
-        # 0.0/1.0 FLOAT vector (same convention as ``active_ref`` —
-        # Mosaic-safe loop carry, and it doubles as the multiplicative
-        # mask feeding the segment-sum matmuls).
-        mask_f = jnp.where(mask, jnp.ones_like(x), 0.0)
-
-        def body(_, act_f):
-            tau = _seg_tau(x, act_f)
-            return jnp.where(x > tau, act_f, 0.0)
-
-        steps = k_pad if proj_steps is None else proj_steps
-        act_f = jax.lax.fori_loop(0, steps, body, mask_f)
-        tau = _seg_tau(x, act_f)
-        return jnp.where(mask, jnp.maximum(x - tau, 0.0), 0.0)
-
-    def project_bisect(x):
-        # Legacy: bisection on the threshold.
-        hi = segmax(x)
-        lo = hi - 1.0
-
-        def body(_, carry):
-            lo, hi = carry
-            mid = 0.5 * (lo + hi)
-            s = segsum(jnp.where(mask, jnp.maximum(x - mid, 0.0), 0.0))
-            too_big = s > 1.0
-            return (jnp.where(too_big, mid, lo),
-                    jnp.where(too_big, hi, mid))
-
-        lo, hi = jax.lax.fori_loop(0, bisect_steps, body, (lo, hi))
-        tau = 0.5 * (lo + hi)
-        return jnp.where(mask, jnp.maximum(x - tau, 0.0), 0.0)
-
-    project = (project_michelot if projection == 'michelot'
-               else project_bisect)
-
-    X = project(X0)
-    AX = jnp.dot(X, A, preferred_element_type=dtype,
-                 precision=jax.lax.Precision.HIGHEST)
-
-    if alpha_min <= alpha0 <= alpha_max:
-        alpha = jnp.full((block, LANES), alpha0, dtype)
-    else:
-        d0 = project(X - (AX + B)) - X
-        ainv = segmax(jnp.abs(d0))
-        ainv = jnp.where(jnp.abs(ainv) < 1e-12, 1.0, ainv)
-        alpha = jnp.clip(1.0 / ainv, alpha_min, alpha_max)
-
-    X_ref[:] = X
-    AX_ref[:] = AX
-    alpha_ref[:] = alpha
-    active_ref[:] = jnp.ones((block, LANES), dtype)
-    stall_ref[:] = jnp.zeros((block, LANES), dtype)
-
-    progress_eps = 32.0 * float(jnp.finfo(dtype).eps)
-
-    def cond(carry):
-        it, any_active = carry
-        return jnp.logical_and(it < max_iterations, any_active)
-
-    def body(carry):
-        it, _ = carry
-        X = X_ref[:]
-        AX = AX_ref[:]
-        alpha = alpha_ref[:]
-        active = active_ref[:] > 0.5
-        stall = stall_ref[:]
-
-        G = AX + B
-        alpha_used = alpha
-        D = project(X - alpha * G) - X
-        AD = jnp.dot(D, A, preferred_element_type=dtype,
-                     precision=jax.lax.Precision.HIGHEST)
-
-        delta = segsum(D * G)
-        q = segsum(D * AD)
-        safe_q = jnp.where(q > 0, q, 1.0)
-        lam = jnp.where(q > 0, jnp.clip(-delta / safe_q, 0.0, 1.0), 1.0)
-        lam = jnp.where(active, lam, 0.0)
-
-        X = X + lam * D
-        AX = AX + lam * AD
-
-        sksk = segsum(D * D)
-        alpha_new = jnp.where(q > 0,
-                              jnp.clip(sksk / safe_q, alpha_min, alpha_max),
-                              jnp.full_like(q, alpha_max))
-        alpha = jnp.where(active, alpha_new, alpha)
-
-        decrease = -(lam * delta + 0.5 * lam * lam * q)
-        fval = jnp.abs(0.5 * segsum(X * AX) + segsum(X * B))
-        no_progress = decrease <= progress_eps * (
-            fval + jnp.finfo(dtype).tiny)
-        stall = jnp.where(no_progress, stall + 1.0, 0.0)
-
-        scale = jnp.minimum(alpha_used, 1.0)
-        d2 = sksk
-        dinf = segmax(jnp.abs(D))
-        converged = ((d2 < (epsilon_two * scale) * (epsilon_two * scale))
-                     | (dinf < epsilon_one * scale) | (stall >= 3.0))
-        active = active & ~converged
-
-        X_ref[:] = X
-        AX_ref[:] = AX
-        alpha_ref[:] = alpha
-        active_ref[:] = jnp.where(active, 1.0, 0.0).astype(dtype)
-        stall_ref[:] = stall
-
-        return it + 1, jnp.max(active_ref[:]) > 0.5
-
-    jax.lax.while_loop(cond, body,
-                       (jnp.asarray(0, jnp.int32), jnp.asarray(True)))
-    write_out(project(X_ref[:]))
-
-
-def _packed_kernel(A_ref, B_ref, X0_ref, S_ref, M_ref, out_ref,
-                   X_ref, AX_ref, alpha_ref, active_ref, stall_ref,
-                   **statics):
-    block = X0_ref.shape[0]
-    mask = jnp.broadcast_to(M_ref[0:1, :], (block, LANES)) > 0.5
-
-    def write_out(v):
-        out_ref[:] = v
-
-    _packed_solve_vmem(A_ref[:], B_ref[:], X0_ref[:], S_ref[:], mask,
-                       write_out, X_ref, AX_ref, alpha_ref, active_ref,
-                       stall_ref, **statics)
-
-
-def _grouped_packed_kernel(A_ref, B_ref, X0_ref, S_ref, M_ref, out_ref,
-                           X_ref, AX_ref, alpha_ref, active_ref,
-                           stall_ref, **statics):
-    """Grouped lane-packed variant: A/B/X0/out refs carry a leading
-    group dim of 1 (one block-diagonal Hessian per grid group)."""
-    block = X0_ref.shape[1]
-    mask = jnp.broadcast_to(M_ref[0:1, :], (block, LANES)) > 0.5
-
-    def write_out(v):
-        out_ref[0, :, :] = v
-
-    _packed_solve_vmem(A_ref[0], B_ref[0], X0_ref[0], S_ref[:], mask,
-                       write_out, X_ref, AX_ref, alpha_ref, active_ref,
-                       stall_ref, **statics)
-
-
-def quad_simplex_qp_pallas_packed(A, B, X0, max_iterations=1000,
-                                  alpha0=-1.0, alpha_min=1e-5,
-                                  alpha_max=1e3, epsilon_one=1e-10,
-                                  epsilon_two=1e-6, block_rows=256,
-                                  interpret=False, mask=None,
-                                  projection=None):
-    """Lane-packed fused QP solve: P = 128 // next_pow2(k) problems per
-    lane row (full VPU/MXU utilization for small ``k``, vs 1 problem per
-    row in :func:`quad_simplex_qp_pallas`).  Requires ``k <= 64``.
-    ``mask`` as in :func:`quad_simplex_qp_pallas`; ``projection`` as in
-    :func:`_packed_solve_vmem` ('michelot' exact threshold, 'bisect'
-    legacy)."""
-    A = jnp.asarray(A)
-    B = jnp.asarray(B)
-    X0 = jnp.asarray(X0)
-    n, k = B.shape
-    k_pad = 8
-    while k_pad < k:
-        k_pad *= 2
-    if k_pad > 64:
-        raise ValueError(f"packed kernel supports k <= 64, got {k}")
-    P = LANES // k_pad
-    dtype = X0.dtype
-
-    rows = -(-n // P)
-    rows_pad = -(-rows // block_rows) * block_rows
-    n_pad = rows_pad * P
-
-    def pack(M):
-        Mp = jnp.zeros((n_pad, k_pad), dtype).at[:n, :k].set(M)
-        return Mp.reshape(rows_pad, LANES)
-
-    A_pad = jnp.zeros((k_pad, k_pad), dtype).at[:k, :k].set(A)
-    A_blk = jnp.kron(jnp.eye(P, dtype=dtype), A_pad)
-
-    seg = jnp.arange(LANES) // k_pad
-    S = (seg[:, None] == seg[None, :]).astype(dtype)
-
-    active = (jnp.ones((k,), dtype) if mask is None
-              else jnp.asarray(mask).astype(dtype))
-    lane_act = jnp.tile(jnp.zeros((k_pad,), dtype).at[:k].set(active), P)
-    M_in = jnp.broadcast_to(lane_act[None, :], (8, LANES))
-
-    kernel = functools.partial(
-        _packed_kernel, k_pad=k_pad,
-        max_iterations=int(max_iterations), alpha0=float(alpha0),
-        alpha_min=float(alpha_min), alpha_max=float(alpha_max),
-        epsilon_one=float(epsilon_one), epsilon_two=float(epsilon_two),
-        bisect_steps=26 if dtype == jnp.float32 else 52,
-        projection=projection or PACKED_PROJECTION, proj_steps=int(k))
-
-    out = pl.pallas_call(
-        kernel,
-        grid=(rows_pad // block_rows,),
-        in_specs=[
-            pl.BlockSpec((LANES, LANES), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((block_rows, LANES), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((block_rows, LANES), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((LANES, LANES), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((8, LANES), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((block_rows, LANES), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct(
-            (rows_pad, LANES), dtype,
-            vma=frozenset(vma_of(A_blk, B, X0, S, M_in))),
-        scratch_shapes=[
-            pltpu.VMEM((block_rows, LANES), dtype),
-            pltpu.VMEM((block_rows, LANES), dtype),
-            pltpu.VMEM((block_rows, LANES), dtype),
-            pltpu.VMEM((block_rows, LANES), dtype),
-            pltpu.VMEM((block_rows, LANES), dtype),
-        ],
-        interpret=interpret,
-    )(A_blk, pack(B), pack(X0), S, M_in)
-
-    return out.reshape(n_pad, k_pad)[:n, :k]
-
-
-def quad_simplex_qp_pallas_packed_grouped(As, Bs, X0s,
-                                          max_iterations=1000,
-                                          alpha0=-1.0, alpha_min=1e-5,
-                                          alpha_max=1e3,
-                                          epsilon_one=1e-10,
-                                          epsilon_two=1e-6,
-                                          block_rows=256,
-                                          interpret=False, mask=None,
-                                          projection=None):
-    """Grouped lane-packed QP solve: R groups (one Hessian each), P
-    problems per lane row within each group.
-
-    ``As``: (R, k, k); ``Bs``/``X0s``: (R, n, k); returns (R, n, k).
-    Combines :func:`quad_simplex_qp_pallas_packed`'s full-lane
-    utilization for small ``k`` with
-    :func:`quad_simplex_qp_pallas_grouped`'s per-restart Hessians (the
-    restart-batched weights QPs of vmapped/sharded fits at case-study
-    ``k``).  ``mask`` is shared across groups.
-    """
-    As = jnp.asarray(As)
-    Bs = jnp.asarray(Bs)
-    X0s = jnp.asarray(X0s)
-    R, n, k = Bs.shape
-    k_pad = 8
-    while k_pad < k:
-        k_pad *= 2
-    if k_pad > 64:
-        raise ValueError(f"packed kernel supports k <= 64, got {k}")
-    P = LANES // k_pad
-    dtype = X0s.dtype
-
-    rows = -(-n // P)
-    rows_pad = -(-rows // block_rows) * block_rows
-    n_pad = rows_pad * P
-
-    def pack(M):
-        Mp = jnp.zeros((R, n_pad, k_pad), dtype).at[:, :n, :k].set(M)
-        return Mp.reshape(R, rows_pad, LANES)
-
-    A_pad = jnp.zeros((R, k_pad, k_pad), dtype).at[:, :k, :k].set(As)
-    eye_P = jnp.eye(P, dtype=dtype)
-    A_blk = jax.vmap(lambda Ap: jnp.kron(eye_P, Ap))(A_pad)
-
-    seg = jnp.arange(LANES) // k_pad
-    S = (seg[:, None] == seg[None, :]).astype(dtype)
-
-    active = (jnp.ones((k,), dtype) if mask is None
-              else jnp.asarray(mask).astype(dtype))
-    lane_act = jnp.tile(jnp.zeros((k_pad,), dtype).at[:k].set(active), P)
-    M_in = jnp.broadcast_to(lane_act[None, :], (8, LANES))
-
-    kernel = functools.partial(
-        _grouped_packed_kernel, k_pad=k_pad,
-        max_iterations=int(max_iterations), alpha0=float(alpha0),
-        alpha_min=float(alpha_min), alpha_max=float(alpha_max),
-        epsilon_one=float(epsilon_one), epsilon_two=float(epsilon_two),
-        bisect_steps=26 if dtype == jnp.float32 else 52,
-        projection=projection or PACKED_PROJECTION, proj_steps=int(k))
-
-    out = pl.pallas_call(
-        kernel,
-        grid=(R, rows_pad // block_rows),
-        in_specs=[
-            pl.BlockSpec((1, LANES, LANES), lambda r, i: (r, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, block_rows, LANES), lambda r, i: (r, i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, block_rows, LANES), lambda r, i: (r, i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((LANES, LANES), lambda r, i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((8, LANES), lambda r, i: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((1, block_rows, LANES),
-                               lambda r, i: (r, i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct(
-            (R, rows_pad, LANES), dtype,
-            vma=frozenset(vma_of(A_blk, Bs, X0s, S, M_in))),
-        scratch_shapes=[
-            pltpu.VMEM((block_rows, LANES), dtype),
-            pltpu.VMEM((block_rows, LANES), dtype),
-            pltpu.VMEM((block_rows, LANES), dtype),
-            pltpu.VMEM((block_rows, LANES), dtype),
-            pltpu.VMEM((block_rows, LANES), dtype),
-        ],
-        interpret=interpret,
-    )(A_blk, pack(Bs), pack(X0s), S, M_in)
-
-    return out.reshape(R, n_pad, k_pad)[:, :n, :k]

@@ -1,4 +1,4 @@
-"""Euclidean projection onto the probability simplex, TPU-native.
+"""Euclidean projection onto the probability simplex, in JAX.
 
 The reference implements the classic sort-and-threshold algorithm as a
 scalar Numba loop batched over rows/columns with ``guvectorize``

@@ -2,14 +2,16 @@
 
 The reference has no distributed backend (single-process CPU package;
 SURVEY.md §2.4); scaling in this framework is built on
-``jax.sharding.Mesh`` over ICI.  The two parallel axes that exist in
-this problem domain:
+``jax.sharding.Mesh``.  The cards of one host are joined all to all
+(NVLink), so the mesh follows the algorithm alone and
+:func:`create_mesh` is the one constructor.  The two parallel axes that
+exist in this problem domain:
 
 - ``restarts``: independent multi-restart fits (data-parallel analog) —
   the reference runs these serially (bin/run_hadisst_aa.py:158-174).
 - ``samples``: rows of the data/kernel matrix (tensor/sequence-parallel
   analog) — Gram formation and the per-row weight QPs shard over it,
-  with ``psum``/``all_gather`` over ICI for the k-sized reductions.
+  with ``psum``/``all_gather`` for the k-sized reductions.
 """
 
 import numpy as np
@@ -17,8 +19,8 @@ import numpy as np
 import jax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-__all__ = ["create_mesh", "create_hybrid_mesh", "ensure_mesh_axes",
-           "replicate", "shard_batch", "P", "NamedSharding"]
+__all__ = ["create_mesh", "ensure_mesh_axes", "replicate", "shard_batch",
+           "P", "NamedSharding"]
 
 
 def create_mesh(shape=None, axis_names=("restarts", "samples"),
@@ -33,64 +35,6 @@ def create_mesh(shape=None, axis_names=("restarts", "samples"),
     if shape is None:
         shape = (len(devices),) + (1,) * (len(axis_names) - 1)
     mesh_devices = np.asarray(devices).reshape(shape)
-    return Mesh(mesh_devices, axis_names)
-
-
-def create_hybrid_mesh(axis_names=("restarts", "samples"), devices=None,
-                       slice_groups=None):
-    """Mesh for multi-slice TPU pods: restarts over DCN, samples over ICI.
-
-    The BASELINE stretch config (BASELINE.json configs[4]) is a
-    multi-restart sweep sharded across more chips than one slice holds.
-    On a multi-slice pod the two mesh axes have very different
-    communication profiles, so their placement matters:
-
-    - the **restart** axis carries *independent* fits — the only
-      cross-device traffic is the final keep-best ``argmin`` reduction
-      (one scalar per restart, once per fit).  It tolerates the slow
-      data-centre network (DCN) between slices.
-    - the **sample** axis carries the per-iteration ``psum`` /
-      ``all_gather`` collectives of the sharded Gram rows and k-sized
-      contractions (parallel/sharded_aa.py).  It must stay inside a
-      slice so those collectives ride ICI.
-
-    Devices are therefore grouped by slice (``device.slice_index`` on
-    real multi-slice TPU backends; pass ``slice_groups`` explicitly to
-    override or when testing on hosts without slice indices), the
-    restart axis spans the groups, and the sample axis spans devices
-    within a group.  On a single slice this degrades to
-    ``create_mesh(shape=(1, n))`` — all parallelism on ICI.
-
-    ``slice_groups``: optional sequence of equal-length device
-    sequences, one per slice.
-    """
-    if slice_groups is None:
-        if devices is None:
-            devices = jax.devices()
-        groups = {}
-        for d in devices:
-            groups.setdefault(getattr(d, "slice_index", 0), []).append(d)
-        slice_groups = [groups[k] for k in sorted(groups)]
-    elif devices is not None:
-        raise ValueError(
-            "pass either devices (grouped by slice_index) or explicit "
-            "slice_groups, not both — slice_groups fully determines the "
-            "device layout")
-    slice_groups = [list(g) for g in slice_groups]
-    if not slice_groups or any(len(g) == 0 for g in slice_groups):
-        raise ValueError("slice_groups must be a non-empty sequence of "
-                         "non-empty device groups; got %r" % (slice_groups,))
-    sizes = {len(g) for g in slice_groups}
-    if len(sizes) != 1:
-        raise ValueError(
-            "slices must hold equally many devices for a rectangular "
-            "mesh; got group sizes %r" % sorted(len(g) for g in
-                                                slice_groups))
-    flat = [d for g in slice_groups for d in g]
-    if len(set(flat)) != len(flat):
-        raise ValueError("slice_groups contain duplicate devices; each "
-                         "device may appear in exactly one slice group")
-    mesh_devices = np.asarray(slice_groups)
     return Mesh(mesh_devices, axis_names)
 
 

@@ -6,7 +6,7 @@ one chip.  Mesh axes:
 - ``restarts``: independent fits, pure data parallelism (no collectives
   except the final keep-best selection).
 - ``samples``: rows of the data matrix.  Per-row weight QPs are local;
-  the k-sized contractions cross shards via ICI collectives:
+  the k-sized contractions cross shards via collectives:
   ``psum`` for Z'Z / C@K / cost reductions, ``all_gather`` for the
   (n, k)-sized Z and KZD blocks.
 
@@ -25,7 +25,7 @@ models/gpnh_convex_coding._gpnh_core) term by term so the cost
 trajectories match the unsharded fits.
 
 The reference has no distributed execution at all (SURVEY.md §2.4);
-this module is the from-scratch TPU scaling layer.
+this module is the from-scratch multi-device scaling layer.
 """
 
 import functools
@@ -59,7 +59,7 @@ __all__ = ["distributed_gram", "sharded_aa_train_step", "sharded_aa_fit",
 #: helper).  Tests running the grouped Pallas QP in INTERPRET mode
 #: flip this off: the pallas HLO interpreter itself trips the vma
 #: rules on its internal block slicing (JAX suggests check_vma=False
-#: as the workaround for exactly this); the compiled Mosaic path is
+#: as the workaround for exactly this); the compiled GPU kernel is
 #: unaffected.
 CHECK_VMA = True
 
@@ -71,17 +71,10 @@ def _weights_backend_kwargs(weights_solver_kwargs, k=None):
     The restart-batched QP dispatches through
     ``quad_simplex_spg_batch_grouped``: 'xla' vmaps the lockstep
     solver, 'pallas' runs all restarts in one fused grouped kernel
-    (ops/pallas_qp.py:quad_simplex_qp_pallas_grouped — the
-    single-Hessian kernel cannot nest under vmap, which is why round
-    2 rejected 'pallas' here).  'auto' resolves with sharded-fit
-    semantics: the grouped Pallas kernel measured 1.88x faster (and
-    better-converged) than XLA at protocol scale
-    (solvers.spg.resolve_qp_backend has the numbers)."""
+    (ops/pallas_qp.py:quad_simplex_qp_pallas).  'auto' resolves with
+    sharded-fit semantics (solvers.spg.resolve_qp_backend has the
+    measured numbers); an unknown backend raises ``ValueError``."""
     cfg = make_config(QPSolverConfig, weights_solver_kwargs)
-    if cfg.backend not in ('xla', 'pallas', 'auto'):
-        raise ValueError(
-            "unknown weights-QP backend %r; use 'xla', 'pallas' or "
-            "'auto'" % (cfg.backend,))
     backend = resolve_qp_backend(cfg.backend, k=k, regime='sharded_fit')
     return backend, cfg.kwargs()
 
@@ -90,8 +83,8 @@ def _weights_backend_kwargs(weights_solver_kwargs, k=None):
 def distributed_gram(mesh, X, feature_axis="samples"):
     """Gram matrix ``X X'`` with the feature dimension sharded.
 
-    Each device forms the partial Gram of its feature block on the MXU;
-    one ``psum`` over ICI accumulates them (blockwise Gram formation —
+    Each device forms the partial Gram of its feature block; one
+    ``psum`` accumulates them (blockwise Gram formation —
     the sharded analog of reference archetypal_analysis.py:1032).
     """
     @functools.partial(
@@ -361,9 +354,8 @@ def sharded_aa_train_step(mesh, X, Zs, Cs, alphas, *, delta=0.0,
       alphas: (n_restarts, k); updated when ``do_scale`` (box [1±delta]).
 
     ``weights_backend='pallas'`` runs the restart-batched weight QPs in
-    one fused grouped kernel; the default 'auto' picks it on TPU
-    (measured 1.88x at protocol scale — see
-    ``solvers.spg.resolve_qp_backend``).  Returns updated ``(Zs, Cs,
+    one fused grouped kernel; the default 'auto' picks it on the GPU
+    (see ``solvers.spg.resolve_qp_backend``).  Returns updated ``(Zs, Cs,
     alphas, costs)`` with the same shardings (``costs``: per-restart
     objective).  Jit-compatible; call under ``jax.jit`` for real runs.
     """

@@ -6,13 +6,13 @@ framework scales over a device mesh.
 
 - :func:`sharded_kmeans_fit` — Lloyd iterations with the data rows
   sharded over a ``samples`` mesh axis.  The per-shard assignment step
-  is local (one MXU matmul); the centroid update crosses shards with a
+  is local (one matmul); the centroid update crosses shards with a
   single ``psum`` of the k-sized count/sum statistics; seeding fetches
   candidate rows from their owning shard by a masked ``psum``
   broadcast.  Restarts shard over a ``restarts`` axis with the same
   cross-mesh keep-best selection as the sharded AA/GPNH fits.
   (Single-device analog: models/kmeans.py:kmeans_fit, itself the
-  TPU-native replacement for the reference's sklearn KMeans,
+  on-device replacement for the reference's sklearn KMeans,
   reference src/convex_dim_red/kmeans.py:30-32.)
 - :func:`sharded_pca` — the Gram-space PCA path
   (models/pca.py:pca_fit(use_gram=True)) with the FEATURE dimension
@@ -198,8 +198,8 @@ def sharded_pca(mesh, X, *, n_components, center=True,
                 feature_axis="samples"):
     """Gram-path PCA with the feature dimension sharded over the mesh.
 
-    Each shard centers its feature block and forms the partial Gram on
-    the MXU; one ``psum`` yields the replicated n x n Gram; the small
+    Each shard centers its feature block and forms the partial Gram;
+    one ``psum`` yields the replicated n x n Gram; the small
     ``eigh`` runs replicated; the (k, d) components come back sharded
     over ``feature_axis`` because the back-projection
     ``(Xc' U / s)`` only needs local columns.  Math identical to

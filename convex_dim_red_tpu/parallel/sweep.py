@@ -171,8 +171,9 @@ def gpnh_model_selection_sweep(data, ks, key, n_init=50, lambda_W=0.0,
     uniform weights; the random-dictionary scale stays the active-k
     value), so bucketed per-k costs differ from the per-k protocol at
     random-restart-noise level.  ``restart_chunk`` bounds how many
-    restarts run in one device execution (the TPU execution watchdog
-    guard; see restarts._keep_best_over_chunks).
+    restarts run in one device execution (see
+    restarts._keep_best_over_chunks; the bound is not yet measured on
+    the H100).
 
     ``checkpoint_dir=`` resumes like :func:`aa_model_selection_sweep`.
 

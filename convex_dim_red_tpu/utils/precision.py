@@ -1,41 +1,22 @@
 """Library-wide matmul precision policy.
 
-On TPU, JAX's DEFAULT matmul precision runs float32 matmuls as a
-single MXU pass with the *inputs truncated to bfloat16* (~8 mantissa
-bits).  For this library that is not a harmless speed default: the
-alternating solvers drive sub-problems to tolerances of 1e-4..1e-12
-(reference wrappers: run_hadisst_aa_wrapper.sh:40-44), and every
-Hessian, gradient contraction, and cost evaluation flows through a
-matmul.  Measured on a planted k=3 archetypal-analysis problem on one
-v5e chip (float32 data):
-
-====================  ==========  ===========  ==================
-matmul precision      cost floor  iterations   monotone decrease?
-====================  ==========  ===========  ==================
-DEFAULT (bfloat16)    ~1e-3       cap (120+)   no (+2e-3 swings)
-'float32' (6-pass)    ~6e-7       53           yes
-====================  ==========  ===========  ==================
-
-The bfloat16 truncation noise both floors the reachable cost three
-decades early and makes the alternating steps oscillate, burning the
-iteration budget.  The extra passes of the 'float32' mode cost ~6x on
-the matmul units, but these workloads' per-iteration matmuls are small
-(k x n x n with k <= ~20) and latency/HBM-bound, so wall-clock is
-dominated by iteration *count* — which 'float32' halves.
-
-The middle tier, 'tensorfloat32' (3-pass bfloat16 on TPU), behaves
-differently at PROTOCOL scale (n=1788 Gram-sized matmuls, which are
-MXU-throughput-bound): measured at the headline workload it converges
-in the same number of outer iterations as 'float32', runs 1.31x
-faster, and its winner's float64-audited cost is as good or better
-(benchmarks/precision_ab.json — bench.py opts down to it per-run and
-re-costs the returned factors in float64 as a guard).  The library
-default stays 'float32' because the small-problem regime above and the
-reference-tolerance test paths do need the full six passes.
+JAX's DEFAULT matmul precision lets XLA run float32 matmuls at reduced
+precision: on the NVIDIA H100 it may use the TF32 tensor cores, which
+keep a 10-bit mantissa (about three decimal digits).  For this library
+that is not a harmless speed default: the alternating solvers drive
+sub-problems to tolerances of 1e-4..1e-12 (reference wrappers:
+run_hadisst_aa_wrapper.sh:40-44), and every Hessian, gradient
+contraction, and cost evaluation flows through a matmul.  Truncated
+matmul inputs floor the reachable cost decades early and make the
+alternating steps oscillate, burning the iteration budget.
 
 Accuracy is therefore the library default: every public entry point
-traces its matmuls under ``jax.default_matmul_precision('float32')``.
-Speed-hungry users can opt down globally::
+traces its matmuls under ``jax.default_matmul_precision('float32')``,
+which on the GPU keeps float32 matmuls off TF32 (chip_smoke.py checks
+the flagship's Gram against float64 to 1e-5).  What the cheaper policies
+('tensorfloat32': TF32 tensor cores; 'bfloat16') cost in fit quality
+and gain in time on the H100 is not yet measured.  Speed-hungry users
+can opt down globally::
 
     import convex_dim_red_tpu as cdr
     cdr.set_matmul_precision('tensorfloat32')   # or 'bfloat16'

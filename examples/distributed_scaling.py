@@ -17,7 +17,7 @@ Run on real chips (uses all attached devices):
 
     python examples/distributed_scaling.py
 
-or on a virtual 8-device CPU mesh (no TPU needed):
+or on a virtual 8-device CPU mesh (no GPU needed):
 
     python examples/distributed_scaling.py --cpu8
 """

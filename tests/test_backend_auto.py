@@ -1,10 +1,11 @@
 """Tests for the measured 'auto' weights-QP backend dispatch.
 
 ``resolve_qp_backend`` (solvers/spg.py) picks the QP backend per call
-regime: cold one-shot batches prefer the fused Pallas kernel on TPU,
-warm-started fit-loop QPs and non-TPU platforms resolve to XLA.  The
-heuristic is grounded in benchmarks/fit_backend_ab.py measurements; the
-tests pin the dispatch contract, not the timings.
+regime: cold one-shot batches and the restart-batched (grouped and
+sharded) fits take the fused Pallas kernel on the GPU, warm-started
+fit-loop QPs and every other platform resolve to XLA.  The choice is
+grounded in benchmarks/qp_kernel_ab.py measurements (PERF.md); the tests
+pin the dispatch contract, not the timings.
 """
 
 import jax
@@ -14,6 +15,7 @@ import pytest
 
 from convex_dim_red_tpu import ArchetypalAnalysis, resolve_qp_backend
 from convex_dim_red_tpu.models._common import QPSolverConfig
+from convex_dim_red_tpu.ops.pallas_qp import MAX_K
 from convex_dim_red_tpu.parallel.sharded_aa import _weights_backend_kwargs
 from convex_dim_red_tpu.solvers.spg import quad_simplex_spg_batch
 
@@ -26,22 +28,36 @@ def test_explicit_backends_pass_through():
 
 def test_auto_fit_regime_resolves_to_xla_everywhere(monkeypatch):
     assert resolve_qp_backend("auto", regime="fit") == "xla"
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
     assert resolve_qp_backend("auto", regime="fit") == "xla"
 
 
-def test_auto_oneshot_is_xla_off_tpu():
+def test_auto_oneshot_is_xla_off_gpu():
     # conftest pins the test platform to CPU.
     assert jax.default_backend() == "cpu"
     assert resolve_qp_backend("auto") == "xla"
 
 
-def test_auto_oneshot_is_pallas_on_tpu_within_kernel_width(monkeypatch):
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+def test_auto_oneshot_is_pallas_on_gpu_within_kernel_width(monkeypatch):
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
     assert resolve_qp_backend("auto") == "pallas"
-    assert resolve_qp_backend("auto", k=128) == "pallas"
-    # Wider than the kernel's lane register: fall back to XLA.
-    assert resolve_qp_backend("auto", k=129) == "xla"
+    assert resolve_qp_backend("auto", k=MAX_K) == "pallas"
+    # Wider than the kernel takes: fall back to XLA.
+    assert resolve_qp_backend("auto", k=MAX_K + 1) == "xla"
+
+
+def test_k_above_kernel_limit(monkeypatch):
+    """Above the kernel's width 'auto' resolves to 'xla' and an explicit
+    'pallas' raises, on every platform and in every regime."""
+    for platform in ("cpu", "gpu"):
+        monkeypatch.setattr(jax, "default_backend", lambda: platform)
+        for regime in ("oneshot", "fit", "sharded_fit"):
+            assert resolve_qp_backend("auto", k=MAX_K + 1,
+                                      regime=regime) == "xla"
+            with pytest.raises(ValueError, match="k <= %d" % MAX_K):
+                resolve_qp_backend("pallas", k=MAX_K + 1, regime=regime)
+    with pytest.raises(ValueError, match="unknown weights-QP backend"):
+        resolve_qp_backend("numba")
 
 
 def test_qp_config_defaults_to_auto():
@@ -49,24 +65,24 @@ def test_qp_config_defaults_to_auto():
 
 
 def test_pallas_width_limit_matches_kernel():
-    # _PALLAS_MAX_K is a plain int so resolution never imports the
-    # Pallas module off-TPU; pin it to the kernel's real lane width so
-    # the two cannot drift apart.
-    from convex_dim_red_tpu.ops import pallas_qp
-    from convex_dim_red_tpu.solvers.spg import _PALLAS_MAX_K
-    assert _PALLAS_MAX_K == pallas_qp.LANES
+    # Resolution and the kernel share one limit: the widest k the
+    # kernel's launch table covers.
+    from convex_dim_red_tpu.ops.pallas_qp import launch_config
+    assert launch_config(MAX_K)[0] == MAX_K
+    with pytest.raises(ValueError):
+        launch_config(MAX_K + 1)
 
 
 def test_sharded_paths_resolve_auto(monkeypatch):
-    # Off-TPU: 'auto' falls back to the portable XLA path.
+    # Off the GPU: 'auto' falls back to the portable XLA path.
     backend, _ = _weights_backend_kwargs({"backend": "auto"}, k=6)
     assert backend == "xla"
-    # On TPU the sharded fits prefer the grouped Pallas kernel
-    # (measured 1.88x at protocol scale) when k fits the kernel.
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    # On the GPU the sharded fits take the fused kernel when k fits it.
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
     backend, _ = _weights_backend_kwargs({"backend": "auto"}, k=6)
     assert backend == "pallas"
-    backend, _ = _weights_backend_kwargs({"backend": "auto"}, k=129)
+    backend, _ = _weights_backend_kwargs({"backend": "auto"},
+                                         k=MAX_K + 1)
     assert backend == "xla"
     with pytest.raises(ValueError, match="unknown weights-QP backend"):
         _weights_backend_kwargs({"backend": "numba"})

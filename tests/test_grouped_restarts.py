@@ -4,9 +4,9 @@
 batched ACROSS restarts through :func:`quad_simplex_spg_batch_grouped`
 and the outer loop freezes converged restarts per-iteration
 (``sharded_aa._keep_best_loop``) instead of vmapping whole
-``_kernel_aa_core`` fits.  On TPU this is the production protocol path
-(grouped Pallas QP measured 1.88x faster at protocol scale); these
-tests pin the semantics against the legacy vmapped path on the CPU
+``_kernel_aa_core`` fits.  On the GPU this is the production protocol
+path (with the fused weights kernel; solvers/spg.py:resolve_qp_backend);
+these tests pin the semantics against the legacy vmapped path on the CPU
 mesh, where both run the same XLA row solver and must agree to float
 tolerance from identical initial states.
 """
@@ -136,13 +136,13 @@ def test_grouped_auto_is_legacy_on_cpu():
     """On CPU the auto weights backend resolves to 'xla', so
     ``grouped=None`` keeps the legacy vmapped path (the grouped
     structure only auto-engages where it was measured faster: the
-    Pallas TPU regime; solvers/spg.py:resolve_qp_backend)."""
+    fused kernel on the GPU; solvers/spg.py:resolve_qp_backend)."""
     from convex_dim_red_tpu.parallel.restarts import _grouped_backend
     from convex_dim_red_tpu.models._common import QPSolverConfig
 
     cfg = QPSolverConfig(backend='auto')
     assert _grouped_backend(None, None, cfg, 3) is None
-    # Explicit pallas request engages the grouped structure even off-TPU
+    # Explicit pallas request engages the grouped structure even off-GPU
     # (callers opting in, e.g. interpret-mode tests).
     assert _grouped_backend(None, None, QPSolverConfig(
         backend='pallas'), 3) == 'pallas'

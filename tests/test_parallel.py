@@ -447,7 +447,7 @@ def test_mesh_partial_final_chunk_masks_pad_restarts():
 
 @pytest.mark.slow
 def test_gpnh_restart_chunk_equivalence():
-    """GPNH restart chunking (round-2 TPU-watchdog guard) must keep
+    """GPNH restart chunking (bounded device executions) must keep
     identical keep-best semantics to the single-execution run."""
     from convex_dim_red_tpu.parallel.restarts import gpnh_fit_restarts
     rng = np.random.RandomState(22)
@@ -622,26 +622,16 @@ def test_sharded_fits_pallas_weights_match_xla(monkeypatch):
     weights QPs through the grouped fused kernel (interpret mode here)
     and converges to the same optimum as the XLA backend."""
     import convex_dim_red_tpu.parallel.sharded_aa as sa
-    from convex_dim_red_tpu.ops.pallas_qp import (
-        quad_simplex_qp_pallas_grouped)
     from convex_dim_red_tpu.solvers.spg import (
-        _pallas_qp_kwargs, quad_simplex_spg_batch_grouped)
+        quad_simplex_spg_batch_grouped)
 
     backends_seen = []
 
     def grouped_interpret(As, Bs, X0s, backend='xla', mask=None, **kw):
         backends_seen.append(backend)
         if backend == 'pallas':
-            # Interpret mode on the CPU mesh; use the UNPACKED grouped
-            # kernel — the packed variant's segment rolls are so slow
-            # in interpret mode on this 1-core host that one virtual
-            # device exceeds XLA-CPU's 40 s collective-rendezvous
-            # timeout while its sample group waits at the next psum
-            # (SIGABRT).  Packed-kernel correctness is covered by
-            # test_pallas_qp; this test checks the sharded-fit wiring.
-            return quad_simplex_qp_pallas_grouped(
-                As, Bs, X0s, mask=mask, interpret=True,
-                **_pallas_qp_kwargs(kw))
+            # The fused kernel in interpret mode on the CPU mesh.
+            kw = dict(kw, interpret=True)
         return quad_simplex_spg_batch_grouped(As, Bs, X0s,
                                               backend=backend,
                                               mask=mask, **kw)
@@ -650,7 +640,7 @@ def test_sharded_fits_pallas_weights_match_xla(monkeypatch):
                         grouped_interpret)
     # The pallas HLO INTERPRETER (CPU stand-in) trips check_vma on its
     # own internal block slicing — a JAX limitation with check_vma=False
-    # as the suggested workaround; the compiled Mosaic path and the XLA
+    # as the suggested workaround; the compiled kernel and the XLA
     # backend keep the static check (sharded_aa.CHECK_VMA default).
     monkeypatch.setattr(sa, 'CHECK_VMA', False)
 
@@ -742,22 +732,16 @@ def test_sharded_train_step_pallas_backend_matches_xla(monkeypatch):
     reproduces the XLA backend's step (unique QP optima => same
     result)."""
     import convex_dim_red_tpu.parallel.sharded_aa as sa
-    from convex_dim_red_tpu.ops.pallas_qp import (
-        quad_simplex_qp_pallas_grouped)
     from convex_dim_red_tpu.solvers.spg import (
-        _pallas_qp_kwargs, quad_simplex_spg_batch_grouped)
+        quad_simplex_spg_batch_grouped)
 
     backends_seen = []
 
     def grouped_interpret(As, Bs, X0s, backend='xla', mask=None, **kw):
         backends_seen.append(backend)
         if backend == 'pallas':
-            # Unpacked grouped kernel in interpret mode (see
-            # test_sharded_fits_pallas_weights_match_xla for why the
-            # packed variant cannot run on the 1-core CPU mesh).
-            return quad_simplex_qp_pallas_grouped(
-                As, Bs, X0s, mask=mask, interpret=True,
-                **_pallas_qp_kwargs(kw))
+            # The fused kernel in interpret mode on the CPU mesh.
+            kw = dict(kw, interpret=True)
         return quad_simplex_spg_batch_grouped(As, Bs, X0s,
                                               backend=backend,
                                               mask=mask, **kw)
@@ -766,7 +750,7 @@ def test_sharded_train_step_pallas_backend_matches_xla(monkeypatch):
                         grouped_interpret)
     # The pallas HLO INTERPRETER (CPU stand-in) trips check_vma on its
     # own internal block slicing — a JAX limitation with check_vma=False
-    # as the suggested workaround; the compiled Mosaic path and the XLA
+    # as the suggested workaround; the compiled kernel and the XLA
     # backend keep the static check (sharded_aa.CHECK_VMA default).
     monkeypatch.setattr(sa, 'CHECK_VMA', False)
 
@@ -797,47 +781,32 @@ def test_sharded_train_step_pallas_backend_matches_xla(monkeypatch):
     assert np.allclose(np.asarray(Zp).sum(axis=2), 1.0, atol=1e-8)
 
 
-def test_hybrid_mesh_groups_slices_on_restart_axis():
-    """create_hybrid_mesh must put slice groups on the restart (DCN)
-    axis and intra-slice devices on the sample (ICI) axis, so the
-    per-iteration psum/all_gather collectives never cross DCN."""
-    from convex_dim_red_tpu.parallel.mesh import create_hybrid_mesh
-
+def test_create_mesh_layout():
+    """create_mesh lays devices out row-major over the named axes; with
+    ``shape=None`` every device goes on the first axis."""
     devices = jax.devices()
-    groups = [devices[:4], devices[4:]]
-    mesh = create_hybrid_mesh(slice_groups=groups)
+    mesh = create_mesh(shape=(2, 4))
     assert mesh.axis_names == ("restarts", "samples")
     assert mesh.devices.shape == (2, 4)
-    for s, group in enumerate(groups):
-        assert list(mesh.devices[s]) == list(group)
+    for r in range(2):
+        assert list(mesh.devices[r]) == list(devices[4 * r:4 * r + 4])
 
-    # Ragged slices cannot form a rectangular mesh.
+    flat = create_mesh()
+    assert flat.devices.shape == (8, 1)
+    assert list(flat.devices[:, 0]) == list(devices)
+
+    # An explicit device list sets the order; a shape that does not
+    # match the device count fails at construction.
+    rev = create_mesh(shape=(1, 4), devices=devices[4:][::-1])
+    assert list(rev.devices[0]) == list(devices[4:][::-1])
     with pytest.raises(ValueError):
-        create_hybrid_mesh(slice_groups=[devices[:3], devices[3:]])
-
-    # Hosts without slice indices degrade to a single-slice (1, n)
-    # mesh: all parallelism on ICI.
-    single = create_hybrid_mesh(devices=devices)
-    assert single.devices.shape == (1, 8)
-
-    # Ambiguous / malformed layouts fail loudly at construction, not
-    # deep inside Mesh internals.
-    with pytest.raises(ValueError, match="not both"):
-        create_hybrid_mesh(devices=devices,
-                           slice_groups=[devices[:4], devices[4:]])
-    with pytest.raises(ValueError, match="non-empty"):
-        create_hybrid_mesh(slice_groups=[])
-    with pytest.raises(ValueError, match="non-empty"):
-        create_hybrid_mesh(slice_groups=[devices[:4], []])
-    with pytest.raises(ValueError, match="duplicate"):
-        create_hybrid_mesh(slice_groups=[devices[:4], devices[:4]])
+        create_mesh(shape=(3, 3))
 
 
 @pytest.mark.slow
-def test_sharded_aa_fit_on_hybrid_mesh_matches_flat_mesh():
-    """The SPMD fit must be numerically invariant to whether its mesh
-    came from create_mesh or the multi-slice-aware constructor."""
-    from convex_dim_red_tpu.parallel.mesh import create_hybrid_mesh
+def test_sharded_aa_fit_invariant_to_mesh_device_order():
+    """The SPMD fit must be numerically invariant to the order of the
+    devices in its mesh."""
     from convex_dim_red_tpu.parallel.sharded_aa import sharded_aa_fit
 
     rng = np.random.RandomState(11)
@@ -847,17 +816,16 @@ def test_sharded_aa_fit_on_hybrid_mesh_matches_flat_mesh():
     alphas = np.ones((R, k))
 
     devices = jax.devices()
-    # Reversed slice order: the hybrid mesh has a genuinely different
-    # device layout than the flat mesh, so agreement shows layout
-    # invariance rather than grid identity.
-    hybrid = create_hybrid_mesh(slice_groups=[devices[4:], devices[:4]])
+    # Reversed device order: a genuinely different layout than the flat
+    # mesh, so agreement shows layout invariance rather than identity.
+    reordered = create_mesh(shape=(2, 4), devices=devices[::-1])
     flat = create_mesh(shape=(2, 4), axis_names=("restarts", "samples"))
-    assert not np.array_equal(np.asarray(hybrid.devices),
+    assert not np.array_equal(np.asarray(reordered.devices),
                               np.asarray(flat.devices))
 
     kwargs = dict(tolerance=1e-10, max_iterations=40,
                   stopping_criterion='abs_delta_f')
-    res_h = sharded_aa_fit(hybrid, jnp.asarray(X), jnp.asarray(Zs),
+    res_h = sharded_aa_fit(reordered, jnp.asarray(X), jnp.asarray(Zs),
                            jnp.asarray(Cs), jnp.asarray(alphas), **kwargs)
     res_f = sharded_aa_fit(flat, jnp.asarray(X), jnp.asarray(Zs),
                            jnp.asarray(Cs), jnp.asarray(alphas), **kwargs)

@@ -1,8 +1,7 @@
 """Matmul precision policy: library entry points must trace their
-matmuls under the policy precision ('float32' by default — on TPU,
-JAX's DEFAULT truncates f32 matmul inputs to bfloat16, which floors
-the reachable cost three decades early; see utils/precision.py for
-the measured table)."""
+matmuls under the policy precision ('float32' by default — JAX's
+DEFAULT may run f32 matmuls at reduced precision (TF32 on the GPU),
+which floors the reachable cost early; see utils/precision.py)."""
 
 import jax
 import numpy as np

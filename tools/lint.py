@@ -24,7 +24,8 @@ Checks (codes roughly follow pyflakes/pycodestyle conventions):
 - F822  name listed in ``__all__`` but not defined in the module
 
 Usage: ``python tools/lint.py [paths...]`` (defaults to the package,
-``bin``, ``benchmarks``, ``examples``, ``tools`` and ``tests``).
+``bin``, ``benchmarks``, ``examples``, ``tools``, ``tests`` and the
+top-level scripts).
 Exits non-zero if any finding is reported.
 """
 
@@ -35,7 +36,8 @@ from pathlib import Path
 MAX_LINE = 79
 
 DEFAULT_PATHS = ("convex_dim_red_tpu", "bin", "benchmarks", "examples",
-                 "tools", "tests", "bench.py", "__graft_entry__.py")
+                 "tools", "tests", "bench.py", "chip_smoke.py",
+                 "__graft_entry__.py")
 
 
 def _iter_py_files(paths):
